@@ -20,6 +20,9 @@ Two nested loops (the documented large-move contract, Scene.tri_geom):
     the new geometry.  Rebuilding re-welds (vertex order may change), so
     each outer round continues from the rebuilt topology's own arrays.
 
+Runs on a GPU only, with the persistent compile cache of
+``setup_compile_cache``.
+
 Run:  python examples/fit_vertices.py --n-rays 2048 --steps 100
 """
 
@@ -38,7 +41,7 @@ from hare_tpu import HareConfig, Ray, SpatialPartition, Topology
 from hare_tpu.dist import make_ray_mesh, make_train_step, sharded_histogram
 from hare_tpu.mesh import shapes
 from hare_tpu.trace import uniform_sphere
-from hare_tpu.utils import MetricsLogger
+from hare_tpu.utils import MetricsLogger, require_gpu, setup_compile_cache
 
 
 def extents(v: np.ndarray) -> np.ndarray:
@@ -46,6 +49,8 @@ def extents(v: np.ndarray) -> np.ndarray:
 
 
 def main(argv=None):
+    require_gpu()
+    setup_compile_cache()
     p = HareConfig.parser()
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--inner", type=int, default=25,

@@ -1,6 +1,6 @@
-"""hare_tpu — a TPU-native differentiable acoustic ray tracer.
+"""hare_tpu — a differentiable acoustic ray tracer on JAX.
 
-A from-scratch JAX/Pallas framework with the capabilities of
+A from-scratch JAX framework with the capabilities of
 PachydermAcoustic/Hare (see SURVEY.md): watertight ray/triangle and ray/AABB
 intersection, voxel-grid 3D-DDA, octree and KD-tree traversal, welded mesh
 topology — plus analytic gradients and multi-chip sharding the reference

@@ -1,9 +1,9 @@
 """Brute-force ray casting: every ray against every triangle, tiled.
 
-The "no acceleration structure" baseline (BASELINE.json config 1).  On TPU
-this is often the fastest choice up to a few thousand triangles: the MT test
-is pure VPU elementwise work over a dense (rays x tris) tile — perfectly
-regular, no gathers, no divergence — so it also serves as the reference
+The "no acceleration structure" baseline (BASELINE.json config 1).  The MT
+test is pure elementwise work over a dense (rays x tris) tile — perfectly
+regular, no gathers, no divergence — so it is a fair choice for small
+scenes and also serves as the reference
 implementation every accel structure must agree with (the implicit
 ``Spatial_Partition`` contract: all structures return the same nearest hit).
 

@@ -37,13 +37,14 @@ __all__ = [
 ]
 
 # Default triangles per window row.  Row width = 12*win lanes (9 geometry
-# components + 3 id lanes per triangle).  Profiled on-chip (r3): the test
-# phase is HBM-bandwidth-bound on the materialized gather result (~480 GB/s
-# on (N*C, 12*win) rows), so row BYTES are what matters — and with typical
-# cell occupancies of ~10-30 triangles, 32-wide rows were mostly padding.
-# 16 halves the traffic at equal coverage for all but the fattest cells;
-# builders may pass ``win=`` to pack_windows to override (test_windows
-# infers the width from ``win_data.shape[1]``).
+# components + 3 id lanes per triangle).  The test phase reads the
+# materialized gather result, (N*C, 12*win) rows, from device memory, so
+# row BYTES are what matters — and with typical cell occupancies of ~10-30
+# triangles, 32-wide rows are mostly padding.  16 halves the traffic at
+# equal coverage for all but the fattest cells (tuned on the earlier
+# accelerator, not yet measured on the H100); builders may pass ``win=`` to
+# pack_windows to override (test_windows infers the width from
+# ``win_data.shape[1]``).
 WIN = 16
 
 
@@ -56,7 +57,7 @@ def pack_windows(
     items: np.ndarray,
     win: int = WIN,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Pack per-group triangle lists into 128-lane window rows (host side).
+    """Pack per-group triangle lists into 12*win-lane window rows (host side).
 
     Shared device layout for every accel structure (grid cells, octree and
     KD-tree leaves): each row holds a WIN-triangle *window* of one group's
@@ -118,7 +119,8 @@ def pack_windows(
 
 # Rays per internal test chunk: bounds the materialized gather result to
 # ~C * 12*win * 4 * CHUNK bytes (~800 MB at C=16, win=16) so million-ray
-# batches don't OOM HBM on the 13 GB full-width gather (config-5 scale).
+# batches don't materialize a 13 GB full-width gather (config-5 scale).
+# Tuned on the earlier accelerator, not yet measured on the H100.
 TEST_CHUNK = 1 << 16
 
 
@@ -207,14 +209,12 @@ def _test_windows(
     N, C = buf.shape
     win = win_data.shape[1] // 12  # static: row width encodes the packing
     inf = jnp.asarray(jnp.inf, win_data.dtype)
-    # Per-SLOT (N, 12*win) processing (r4; replaces the flat (N*C, 12*win)
-    # form): each slot's rows gather into their natural row-major tiling
-    # exactly as before (same total rows), but the per-ray quantities —
-    # the watertight shear constants, origin components, exclusion ids —
-    # stay at (N, 1) shapes that XLA computes ONCE and CSEs across all C
-    # slots, instead of being jnp.repeat-expanded to lane-padded (N*C, 1)
-    # arrays re-evaluated per candidate row (the (M, 1) ops were ~0.5 ms
-    # of pure lane waste per call at 32k x 8).
+    # Per-SLOT (N, 12*win) processing rather than one flat (N*C, 12*win)
+    # form: each slot's rows gather into their natural row-major tiling
+    # (same total rows), and the per-ray quantities — the watertight shear
+    # constants, origin components, exclusion ids — stay at (N, 1) shapes
+    # that XLA computes ONCE and CSEs across all C slots, instead of being
+    # jnp.repeat-expanded to (N*C, 1) arrays re-evaluated per candidate row.
     d_cmp = tuple(d[:, c : c + 1] for c in range(3))
     o_cmp = tuple(o[:, c : c + 1] for c in range(3))
     act_c = active[:, None]
@@ -293,8 +293,7 @@ def straggler_tiers(
     and marched there; the loop runs as up to three width TIERS, each
     handing off to a 4x narrower one when the active count drops below the
     next width, so the long tail is not paid at the full compaction width
-    (r4 design, extracted r5 — it was maintained in three near-identical
-    copies).
+    (shared by the grid DDA, the tree stack walk and the rope walk).
 
     Args:
       round_fn: ``(ctx_s, state_s, active_mask, best_t_s, best_tri_s) ->
@@ -371,8 +370,7 @@ def _vals_from_comps(kernel, o, d, tri_cmp):
     frozen triangle's barycentric bounds may no longer contain the ray —
     the true hit slid to a neighboring triangle — but the fixed-topology
     value/derivative is the supporting-plane solution.  The masked form
-    returned t = +inf there, which poisoned live-vertex losses (r4 verdict
-    follow-up)."""
+    returned t = +inf there, which poisoned live-vertex losses."""
     o_cmp = tuple(o[..., c] for c in range(3))
     d_cmp = tuple(d[..., c] for c in range(3))
     _, t, u, v = kernel_components(kernel, o_cmp, d_cmp, tri_cmp,
@@ -402,11 +400,9 @@ def _hit_vals(kernel, vertices, iv, o, d, row):
     """Hit values of the frozen triangle: (t, u, v, nx, ny, nz).
 
     Forward: computed from ``row`` — the geometry lanes of
-    ``Scene.tri_geom`` (ONE gathered row; zero vertex gathers — measured
-    2.5 ms/shoot of narrow gathers removed at 32k rays).  The rows track
-    the current ``scene.vertices``: ``Scene.with_vertices`` refreshes
-    them, so the forward is LIVE under vertex updates (r5; previously
-    build-time-frozen).  Backward: the exact VJP of the live recompute,
+    ``Scene.tri_geom`` (ONE gathered row; zero narrow vertex gathers).  The
+    rows track the current ``scene.vertices``: ``Scene.with_vertices``
+    refreshes them, so the forward is LIVE under vertex updates.  Backward: the exact VJP of the live recompute,
     evaluated at the current ``vertices`` (the gathers run only under
     differentiation); the ``row`` cotangent is zeroed so the gradient
     reaches ``vertices`` exactly once even though the rows are themselves

@@ -1,6 +1,6 @@
 """KD-tree: host median-split build + shared batched traversal.
 
-TPU-native rebuild of ``KDTree.cs:23-633``:
+A batched rebuild of ``KDTree.cs:23-633``:
 
 Build (host NumPy):
   - plane placement: binned SAH with free axis choice by default
@@ -111,27 +111,25 @@ def build_kdtree(
 
     ``levels > 1`` collapses that many binary levels into one supernode
     layer (``collapse_levels``) so each lockstep pop walks several levels.
-    Measured r4 (bench scene, 32k rays): pops DO drop (43 -> 21 -> 15 mean
-    at levels 1/2/3) but unlike a true octree the collapsed children are a
-    BSP arrangement with per-subtree plane offsets, so a ray legally
-    crosses >4 of 8 supernode cells and the traversal's rare-overflow push
-    arm becomes the common case — levels 2/3 measured 1.2x/2.9x SLOWER
-    end-to-end than binary.  Default stays 1; the knob remains for
-    non-adversarial shapes.
+    On the bench scene pops DO drop (43 -> 21 -> 15 mean at levels 1/2/3)
+    but unlike a true octree the collapsed children are a BSP arrangement
+    with per-subtree plane offsets, so a ray legally crosses >4 of 8
+    supernode cells and the traversal's rare-overflow push arm becomes the
+    common case — levels 2/3 lost end-to-end to binary on the earlier
+    accelerator (not yet measured on the H100).  Default stays 1; the knob
+    remains for non-adversarial shapes.
 
     ``max_depth=None`` right-sizes the depth to the scene via
-    :func:`hare_tpu.accel.octree.auto_depth` (bench KD 19.8 -> 16.7 ms).
+    :func:`hare_tpu.accel.octree.auto_depth` (a smaller per-ray stack).
 
     ``split`` selects the plane-placement policy:
 
     - ``"sah"`` (default): binned surface-area-heuristic planes with free
       axis choice and empty-space cut-off (:func:`_sah_plane`); SAH also
       terminates a branch early when no plane beats the leaf cost, so trees
-      are leaner where geometry is dense.  Measured r5 (real chip): bench
-      scene 16.7 -> 6.6 ms/32k-ray shoot (median leaf 12 vs SAH leaf 4;
-      7.3x fewer nodes), config-4 655k-tri scene raw shoot 285 -> 43 ms
-      and fwd+bwd vertex grads 0.189 -> 0.583 Mrays/s (leaf 8) — SAH cuts
-      straddler duplication so sharply that the build is also ~5x faster.
+      are leaner where geometry is dense (bench scene: 7.3x fewer nodes
+      than median leaf 12 at SAH leaf 4).  SAH cuts straddler duplication
+      sharply, so the build is also faster.
     - ``"median"``: the reference's median-centroid split with depth%3 axis
       cycling (``KDTree.cs:95-105``), kept for parity studies."""
     if split not in ("median", "sah"):

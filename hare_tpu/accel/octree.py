@@ -1,6 +1,6 @@
 """Octree: host build + shared batched collect-then-test traversal.
 
-TPU-native rebuild of the live octree (``Octree - alt.cs:22-308``):
+A batched rebuild of the live octree (``Octree - alt.cs:22-308``):
 
 Build (host NumPy, recursive but SAT-vectorized per node):
   - cubified padded root box (``:78-85``; without the ``max + min / 2``
@@ -12,12 +12,12 @@ Build (host NumPy, recursive but SAT-vectorized per node):
     ``max_tris_per_node`` (``:93``).
   - Child boxes/ids/leaf-window ranges are packed into the shared gather-row
     tree tables (``accel/tree.py``); leaf triangle lists into the shared
-    128-lane window rows.
+    packed window rows.
 
 Traversal: :func:`hare_tpu.accel.tree.shoot_tree` — the batched lockstep
 collect-then-test walk shared with the KD-tree; see that module for how the
 reference's per-ray ``Stack<(node,tmin,tmax)>`` + ``closestT`` pruning
-(``:196-274``) map onto TPU lockstep execution.  The reference's octree
+(``:196-274``) map onto whole-batch lockstep execution.  The reference's octree
 mailbox is allocated but its stamp check is commented out
 (``Octree - alt.cs:220-222``) — duplicate leaf tests are already idempotent
 under the min-t reduction, which is exactly why mailboxing is dropped
@@ -85,9 +85,9 @@ def auto_depth(
     """Right-size a tree depth to the scene: ``ceil(log_branch(ceil(n/leaf)))
     + slack``, clamped to [lo, hi].  Depth bounds the lockstep traversal's
     per-ray register stack S = (K-1)*(depth+2)+4, whose (N, S) selects are
-    the dominant VPU cost — an oversized fixed depth 8 on the 1,608-tri
-    concert hall cost ~13% at 1M rays (r5 measured, BASELINE.md).  Shared
-    by the octree and both KD builders so the heuristic cannot diverge."""
+    the dominant elementwise cost — an oversized fixed depth (8 on the
+    1,608-tri concert hall) pays for stack slots no ray uses.  Shared by
+    the octree and both KD builders so the heuristic cannot diverge."""
     full = max(1, -(-n_tris // max(leaf, 1)))
     return min(max(int(np.ceil(np.log(full) / np.log(branch))) + slack, lo), hi)
 
@@ -99,8 +99,8 @@ def build_octree(
     pad: float = 1e-3,
 ) -> Octree:
     """``max_depth=None`` right-sizes the depth to the scene via
-    :func:`auto_depth` (r5 measured: depth 8 -> 4 on the concert hall was
-    ~13% at 1M rays, pops unchanged — the win is the smaller stack)."""
+    :func:`auto_depth` (depth 8 -> 4 on the concert hall leaves pops
+    unchanged and shrinks the stack)."""
     tri, tri_poly, tri_top = _extract(source)
     if max_depth is None:
         max_depth = auto_depth(len(tri), max_tris_per_node, 8, 1, 2, 10)

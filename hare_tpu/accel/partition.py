@@ -36,7 +36,7 @@ class SpatialPartition:
     ``Voxel_Grid.cs:48,128``; ``max_depth/max_tris_per_node`` for trees a la
     ``Octree - alt.cs:45`` / ``KDTree.cs:51``).
 
-    kernel: ``"watertight"`` (default — the f32 TPU tracer needs the
+    kernel: ``"watertight"`` (default — the f32 device tracer needs the
     Woop/Benthin/Wald edge tests to avoid cracks along shared edges; the f64
     reference never did) or ``"mt"`` (classic Möller–Trumbore with the
     reference's exact det-cutoff acceptance, for parity studies).
@@ -65,11 +65,11 @@ class SpatialPartition:
         # steps per traversal round.  None = the shoot function's default.
         self._shoot_kw = {"kernel": kernel}
         if accel == "grid":
-            # r5 deep-tail knobs: ``tier`` (always-tested slots + compacted
+            # Deep-tail knobs: ``tier`` (always-tested slots + compacted
             # high-slot arm) and ``cap_s`` (deeper straggler buffer) — see
             # shoot_grid; worthwhile on scenes whose per-ray candidate-row
-            # tails are long (config-5 scale), neutral-to-negative on
-            # shallow ones, so both default off.
+            # tails are long (config-5 scale), no help on shallow ones, so
+            # both default off.
             for name, val in (("cap", cap), ("soft", soft), ("tier", tier),
                               ("cap_s", cap_s)):
                 if val is not None:
@@ -103,10 +103,8 @@ class SpatialPartition:
             ext = np.asarray(self.struct.root_max - self.struct.root_min)
             self.char_step = float(ext.min()) / (2 ** min(self.struct.max_depth, 16))
         elif accel == "kdtree_ropes":
-            # Stackless rope walk (accel/ropes.py) — measured slightly
-            # behind the stack machine on the bench scene (BASELINE.md r5)
-            # but exposed as a first-class backend: its two-scalar resume
-            # state may win on much deeper trees.
+            # Stackless rope walk (accel/ropes.py), a first-class backend:
+            # its two-scalar resume state may win on much deeper trees.
             self.struct = build_kdtree_ropes(self.model, **params)
             self._shoot = partial(
                 shoot_kdtree_ropes, tree=self.struct, **self._shoot_kw
@@ -140,7 +138,7 @@ class SpatialPartition:
                 except ValueError:
                     # Empty or out-of-range topology: keep the combined
                     # grid's test-time filter, which returns all-miss (the
-                    # pre-r5 behavior callers probing topologies rely on).
+                    # behavior callers probing topologies rely on).
                     self._top_grids[top_index] = None
             g = self._top_grids[top_index]
             if g is not None:
@@ -164,9 +162,8 @@ class SpatialPartition:
 
         MEMOIZED: repeated accesses return the SAME callable.  A fresh
         closure per access is a jit footgun — as a static argument it makes
-        every call retrace and recompile the whole program (r4: the eval
-        configs were accidentally measuring compile time this way; config 1
-        went 0.009 -> 3.85 Mrays/s once hoisted).
+        every call retrace and recompile the whole program (a benchmark
+        that re-reads the property per call measures compile time).
         """
         fn = getattr(self, "_shoot_fn_cache", None)
         if fn is not None:

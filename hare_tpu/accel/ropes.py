@@ -1,10 +1,9 @@
-"""Stackless rope-based KD-tree traversal (r5).
+"""Stackless rope-based KD-tree traversal.
 
-The r4 lockstep KD machine (``accel/tree.py``) is a batched stack walk:
+The lockstep KD machine (``accel/tree.py``) is a batched stack walk:
 every pop pays K child slab tests plus push/pop selects over an (N, S)
-packed register stack — and those stack selects are its dominant VPU cost
-(BASELINE.md r4; KD pops mean 43 / max 118 on the bench scene, 19.4 ms vs
-the octree's 12.4).  Ropes (Popov, Günther, Slusallek & Seidel 2007,
+packed register stack — and those stack selects are its dominant
+elementwise cost (KD pops mean 43 / max 118 on the bench scene).  Ropes (Popov, Günther, Slusallek & Seidel 2007,
 "Stackless KD-Tree Traversal for High Performance GPU Ray Tracing")
 delete the stack entirely: each LEAF carries six face links ("ropes") to
 the adjacent node across that face, so a ray walks leaf → exit face →
@@ -411,8 +410,8 @@ def shoot_kdtree_ropes(
                     4 + (dcmp[2] > 0).astype(jnp.int32),
                 ),
             )
-            # 6-way rope select in the INT domain (f32 selects on bitcast
-            # ids canonicalize NaN payloads on TPU — see Scene.with_vertices).
+            # 6-way rope select in the INT domain (an f32 select on bitcast
+            # ids may canonicalize NaN payloads — see Scene.with_vertices).
             rope = jax.lax.bitcast_convert_type(row[:, 12], jnp.int32)
             for f in range(1, 6):
                 rope = jnp.where(

@@ -1,12 +1,11 @@
-"""Shared batched tree traversal for octree and KD-tree (TPU lockstep form).
+"""Shared batched tree traversal for octree and KD-tree (lockstep form).
 
 The reference traverses both trees with per-ray recursion replaced by an
 explicit ``Stack<(node,tmin,tmax)>`` (``Octree - alt.cs:196-274``,
-``KDTree.cs:204-361``).  A per-ray stack machine is the wrong shape for a
-TPU (it vmaps into a sea of scalar conds and dynamic-index scatters), so
-both trees share this batched redesign, mirroring the voxel grid's
-collect-then-test split (see ``voxel.py`` for the memory-system
-measurements that force it):
+``KDTree.cs:204-361``).  A vmapped per-ray stack machine becomes a sea of
+scalar conds and dynamic-index scatters, so both trees share this batched
+redesign, mirroring the voxel grid's collect-then-test split (see
+``voxel.py``):
 
 Layout: one gather-row per node packs ALL K children component-major —
 lane ``c*K + k`` holds component c of child k, components being
@@ -26,20 +25,21 @@ resumes paused rays with ``best_t`` pruning (child boxes with
 most once, duplicate triangle tests are idempotent under min-t — results
 are exact, with no mailboxing (SURVEY.md §2) and no ordering requirement.
 
-TPU cost shaping (profiled r3, 82k-tri scene, 32k rays):
+Cost shaping (tuned on the earlier accelerator, not yet measured on the
+H100):
   - Stack entries are ONE i32 — ``node_id << 8 | quantized_tmin`` — so
-    every push/pop touches a single (N, S) array.  The earlier parallel
-    f32 tmin stack doubled the dominant VPU traffic (the K sequential
-    (N, S) push selects), costing ~1 ms/iteration at S = 74.
+    every push/pop touches a single (N, S) array.  A parallel f32 tmin
+    stack would double the dominant traffic (the K sequential (N, S) push
+    selects).
   - ``tmin`` is quantized to 8 bits against the ray's root-slab span for
     pop-time pruning: ``q(tmin) > q(best_t)`` implies ``tmin > best_t``
     (floor quantization), so the prune is conservative and exact.
   - The pop/expand body runs UNROLL sub-steps per ``while`` iteration —
-    the loop-exit check is a cross-lane reduction (a pipeline sync).
+    the loop-exit check is a reduction to a scalar read by the loop.
   - Round-level straggler compaction (as in ``voxel.py``): lockstep cost
     is per-lane-step and KD pop counts are long-tailed (mean 43 / max 118
-    measured), so unresolved rays are compacted into an NS-wide state and
-    marched there instead of dragging all N lanes along.
+    pops on the bench scene), so unresolved rays are compacted into an
+    NS-wide state and marched there instead of dragging all N lanes along.
 
 Differences from the reference, by design:
   - ``closestT`` pruning (``Octree - alt.cs:210-211``) appears as pop-time
@@ -109,7 +109,7 @@ def collapse_levels(
 
     A K-ary tree becomes a K^levels-ary tree whose supernode children are
     the depth-``levels`` frontier under each kept node (stopping early at
-    leaves).  Rationale (r4, TPU): traversal cost is per POP step — every
+    leaves).  Rationale: lockstep traversal cost is per POP step — every
     pop pays the (N, S) stack selects and the loop-step overhead for all N
     lockstep lanes — so a binary KD-tree (reference ``KDTree.cs``, split
     axis depth%3) pops ~3x fewer nodes when walked 3 levels at a time, and
@@ -299,13 +299,12 @@ def shoot_tree(
     izero_v = vzero.astype(jnp.int32)
     izero = jnp.sum(izero_v)
 
-    # Stack/buffer layout is K-dependent (measured r4, bench scene):
-    # for wide nodes (octree K=8) the hot-loop state is S (and C) separate
-    # (n,) arrays — an (n, S) array with S << 128 pads to full lane tiles
-    # and wastes ~128/S of the VPU on every select (benchmarks/
-    # r4_lane_micro.py: 1.4-8x).  For BINARY trees the op-count of the
-    # per-slot select chains outweighs the padding win (K=2 measured 20%
-    # slower in SoA form), so K < 4 keeps the dense (n, S) one-hot form.
+    # Stack/buffer layout is K-dependent (tuned on the earlier accelerator,
+    # not yet measured on the H100): for wide nodes (octree K=8) the
+    # hot-loop state is S (and C) separate (n,) arrays, so no select works
+    # on a narrow (n, S) minor dimension.  For BINARY trees the op-count of
+    # the per-slot select chains outweighs that layout's gain, so K < 4
+    # keeps the dense (n, S) one-hot form.
     SOA = K >= 4
     lanesS = jnp.arange(S, dtype=jnp.int32)[None, :]
     lanesC = jnp.arange(C, dtype=jnp.int32)[None, :]
@@ -413,11 +412,12 @@ def shoot_tree(
             entk = jax.lax.shift_left(cid, 8) | quant(ctx, tmin)
             if ordered and K > 1:
                 # Front-to-back push ordering (``ComputeTraversalOrder``,
-                # ``Octree - alt.cs:286-306``).  Measured on TPU: the
-                # in-loop sort/shuffle costs 2-3x more than the pops it
-                # saves — pop-time qtmin pruning above already captures
-                # the benefit — so ordering is OFF by default and kept as
-                # a knob for extremely divergence-heavy scenes.
+                # ``Octree - alt.cs:286-306``).  The in-loop sort/shuffle
+                # lost to the pops it saves on the earlier accelerator —
+                # pop-time qtmin pruning above already captures most of the
+                # benefit — so ordering is OFF by default and kept as a knob
+                # for extremely divergence-heavy scenes (not yet measured
+                # on the H100).
                 key = jnp.where(push_hit, tmin, -jnp.inf)
                 order = jnp.argsort(-key, axis=1)
                 entk = jnp.take_along_axis(entk, order, 1)
@@ -431,8 +431,8 @@ def shoot_tree(
             # measure-zero family riding exactly on split planes (e.g. an
             # axis-aligned ray through the center).  Those overflow slots
             # are handled in a lax.cond arm that almost never executes —
-            # the (n, S) stack selects are the dominant VPU cost of the
-            # whole traversal, so halving the always-on count matters.
+            # the (n, S) stack selects are the dominant elementwise cost of
+            # the whole traversal, so halving the always-on count matters.
             P = min(K, 4)
 
             def push_one(stack, sp, ent_s, do):

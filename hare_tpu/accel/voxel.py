@@ -1,9 +1,9 @@
 """Uniform voxel grid with 3-D DDA traversal (the primary accel structure).
 
-TPU-native rebuild of ``Voxel_Grid`` (``Voxel_Grid.cs:27-792``, "concept
+A batched rebuild of ``Voxel_Grid`` (``Voxel_Grid.cs:27-792``, "concept
 based on Amanatides" — Amanatides & Woo 1987) plus the empty-space-skip idea
-of ``Voxel_Grid_Adaptive`` (``Voxel_Grid - alt.cs``), redesigned for the
-memory system of a TPU:
+of ``Voxel_Grid_Adaptive`` (``Voxel_Grid - alt.cs``), redesigned as
+whole-batch array programs:
 
 Build (host, vectorized NumPy — replaces the thread-per-core fill with
 100 ms sleep-join polling, ``Voxel_Grid.cs:92-120``):
@@ -14,18 +14,18 @@ Build (host, vectorized NumPy — replaces the thread-per-core fill with
   - membership by the same SAT triangle/box test (``AABB_Tri_Int.cs``) with
     the reference's 0.1% voxel padding (``Voxel_Grid.cs:283-285``).
 
-Device layout — everything the traversal touches is packed for the TPU's
-gather engine, whose cost is per *row*, nearly independent of row width up
-to a (8, 128) tile (measured ~2.4 ns/row for 128-lane f32 rows vs ~4x that
-when the same data is split across four narrow gathers):
+Device layout — everything the traversal touches is packed so that one
+gather of one wide row fetches a whole candidate window, instead of four
+narrow gathers of the same data (the row width was tuned on the earlier
+accelerator, not yet measured on the H100):
 
   - ``win_data`` (n_windows, 12*win) f32: each row is one win-triangle
     *window* of a cell's triangle list (win = 16 by default; see
     ``accel/common.WIN``) — lanes [0:9*win] hold win x [v0|e1|e2]
     Möller–Trumbore operands component-major, lanes [9*win:12*win] the
     triangle / polygon / topology ids bitcast to f32.  The test phase
-    fetches whole rows; the row width is the bandwidth knob (the phase is
-    HBM-bound on the gathered bytes).
+    fetches whole rows; the row width is the bandwidth knob (the phase
+    reads the gathered bytes from device memory).
   - ``cell_meta`` (n_cells, 2) i32: [window start | n_windows << 8 | dist],
     where ``dist`` is the chebyshev distance to the nearest occupied cell —
     the principled form of the reference's six directional ``UInt16`` step
@@ -79,9 +79,9 @@ FILL_PAD = 1.001
 ENTRY_EPS = 1e-4
 # Distance-field cap (cells); larger empty regions are crossed in several
 # hops.  The cell_meta packing gives the field a full 8 bits, so the cap is
-# 255 (r5; it was 63, which made a 256^3 config-5 grid cross its biggest
-# empty megaregions in 4+ hops instead of 1 — the macro-cell effect for
-# free at any dims <= 256; grids wider than 256 per axis still hop).
+# 255 (a cap of 63 made a 256^3 config-5 grid cross its biggest empty
+# megaregions in 4+ hops instead of 1 — the macro-cell effect for free at
+# any dims <= 256; grids wider than 256 per axis still hop).
 DIST_CAP = 255
 
 
@@ -97,7 +97,7 @@ DIST_CAP = 255
 )
 @dataclasses.dataclass(frozen=True)
 class VoxelGrid:
-    """Device voxel grid: per-cell meta + 128-lane packed window rows.
+    """Device voxel grid: per-cell meta + packed window rows.
     ``dims``/``char_step``/``max_cell_wins`` are static."""
 
     cell_meta: jnp.ndarray  # (nx*ny*nz, 2) i32 [win_start, n_wins<<8 | dist]
@@ -197,9 +197,9 @@ def _refine_fill(
     level's (triangle, parent-cell) members, each parent spawning its <= 8
     children intersected with the triangle's fine-level AABB footprint —
     the reference's adaptive ctor does exactly this (each child tested
-    against the PARENT's member polys, ``Voxel_Grid.cs:208-215``); the r4
-    build instead re-ran the full footprint fill per doubling, an
-    O(doublings) constant-factor loss on big scenes.  Pruning is exact:
+    against the PARENT's member polys, ``Voxel_Grid.cs:208-215``); re-running
+    the full footprint fill per doubling instead would be an O(doublings)
+    constant-factor loss on big scenes.  Pruning is exact:
     the padded child box (pad 0.1% of the CHILD voxel) nests strictly
     inside the padded parent box (pad 0.1% of the 2x parent voxel), so
     SAT(child) implies SAT(parent) and no membership can appear at the
@@ -372,7 +372,7 @@ def build_voxel_grid(
         cell_tris = global_ids[cell_tris]
         tri, tri_poly, tri_top = tri_all, poly_all, top_all
 
-    # ---- pack per-cell lists into the shared 128-lane window-row layout.
+    # ---- pack per-cell lists into the shared window-row layout.
     win_data, win_start, n_wins_per_cell = pack_windows(
         tri, tri_poly, tri_top, cell_start[:-1].astype(np.int64), counts,
         cell_tris, **({} if win is None else {"win": win}),
@@ -426,11 +426,9 @@ def shoot_grid(
 ):
     """Nearest-hit query: collect-then-test 3-D DDA with empty-space skip.
 
-    The traversal is split to fit the TPU memory system (measured: an
-    in-loop gather's cost is dominated by XLA staging its whole operand
-    toward VMEM every iteration, so the marching loop must touch only a
-    small table, and the big geometry table must be hit by one large batched
-    gather per ray batch, not per step):
+    The traversal is split so that the marching loop touches only a small
+    table, and the big geometry table is hit by one large batched gather
+    per ray batch, not per step:
 
       phase 1 — *collect*: a lockstep ``lax.while_loop`` marches the DDA
         touching ONLY ``cell_meta`` (a few bytes per cell).  Occupied cells
@@ -452,8 +450,7 @@ def shoot_grid(
     With ``with_stats=True`` returns the 4-tuple ``(HitRecord, iters,
     rounds, nrows)`` — per-ray phase-1 iteration counts, the scalar number
     of collect+test rounds, and per-ray window-row counts tested
-    (SURVEY.md §5 observability).  NB the stats arity changed r3 (3-tuple)
-    -> r4 (4-tuple, adding ``nrows``).
+    (SURVEY.md §5 observability).
     """
     nx, ny, nz = grid.dims
     dims = jnp.array(grid.dims, jnp.int32)
@@ -463,22 +460,23 @@ def shoot_grid(
     C = max(int(cap), grid.max_cell_wins, 1)
     # Soft test threshold: rays pause for a test pass once >= ``soft``
     # window rows are buffered (an EMPTY buffer still accepts any single
-    # cell up to C, so progress is guaranteed).  Measured r4: per-ray row
-    # counts are tiny (mean 1.9) but the slab test pays for every slot of
-    # every ray, so testing early at a low ``soft`` and resuming the few
-    # unresolved rays through the COMPACTED straggler rounds beats hauling
-    # a deep buffer for all N rays.  None = C (no early pause).
+    # cell up to C, so progress is guaranteed).  Per-ray row counts are
+    # small but the slab test pays for every slot of every ray, so testing
+    # early at a low ``soft`` and resuming the few unresolved rays through
+    # the COMPACTED straggler rounds avoids hauling a deep buffer for all N
+    # rays.  None = C (no early pause).
     soft_eff = C if soft is None else max(1, min(int(soft), C))
-    # Straggler rounds can take a DEEPER buffer (r5, ``cap_s``): the
-    # config-5 grazing tail carries up to 161 candidate rows, and refilling
-    # a C=16 buffer serialized it through ~11 resume rounds (13 -> 4 rounds
-    # measured with cap_s=64).  Default stays C: on scenes whose tails are
-    # shallow (bench: rows max 6) the deep buffer's expand/test cost in the
-    # small tiers is pure waste (measured ~+3 ms of 5.6 at 32k).
+    # Straggler rounds can take a DEEPER buffer (``cap_s``): the config-5
+    # grazing tail carries up to 161 candidate rows, and refilling a C=16
+    # buffer serializes it through many resume rounds (13 -> 4 rounds with
+    # cap_s=64).  Default stays C: on scenes whose tails are shallow (bench:
+    # rows max 6) the deep buffer's expand/test cost in the small tiers buys
+    # nothing.
     C_S = C if cap_s is None else max(C, int(cap_s))
     # Phase-1 march bound: the 3(n-1)+3 DDA walk.
     p1_steps_max = nx + ny + nz + 3
-    # Sub-steps per while iteration (see p1_body).
+    # Sub-steps per while iteration (see p1_body); tuned on the earlier
+    # accelerator, not yet measured on the H100.
     UNROLL = 4
     # Outer bound: every two rounds progress at least one cell.
     max_rounds = 2 * p1_steps_max
@@ -503,10 +501,9 @@ def shoot_grid(
     valid_ray = jnp.isfinite(t0)
 
     # ---- DDA setup (Voxel_Grid.cs:379-422), as SoA (N,) components.
-    # (N, 3) arrays occupy 3 of 128 lanes per tile on TPU, so every
-    # elementwise op in the marching loop would pay ~5x tile overhead;
-    # profiled: the (N, 3) form of this body cost 0.27 ms/iter at 32k rays
-    # vs a ~0.1 ms gather-bound floor.  All loop state is (N,) per axis.
+    # All loop state is (N,) per axis rather than (N, 3), so no elementwise
+    # op in the marching loop works on a 3-wide minor dimension (a layout
+    # tuned on the earlier accelerator, not yet measured on the H100).
     ocmp = (o[:, 0], o[:, 1], o[:, 2])
     dcmp = (d[:, 0], d[:, 1], d[:, 2])
     gmin_c = [grid.grid_min[c] for c in range(3)]
@@ -514,8 +511,8 @@ def shoot_grid(
     dims_c = grid.dims
 
     safe_d = tuple(jnp.where(dc == 0, 1.0, dc) for dc in dcmp)
-    # Reciprocals hoisted out of the march loop: VPU divides cost ~10x a
-    # multiply and the body divides 3-6x per step otherwise.
+    # Reciprocals hoisted out of the march loop: a divide costs several
+    # multiplies and the body divides 3-6x per step otherwise.
     inv_sd = tuple(1.0 / sd for sd in safe_d)
     inv_vox_c = [1.0 / v for v in vox_c]
     step_c = tuple(
@@ -560,13 +557,12 @@ def shoot_grid(
     # ======== phase 1: meta-only DDA march collecting candidate windows ====
     # The body is kept to a handful of (N,)-wide fusions and exactly ONE
     # gather — no argmin/one_hot/take_along_axis (extra gathers/relayouts),
-    # no (N, 3) arrays (lane waste).  Occupied cells append only their
-    # (row_start, n_rows) RUN into a narrow (n, K) pair of buffers — the
-    # (n, C) window-row expansion happens ONCE per round after the loop
-    # (profiled: the in-loop (N, C) select was ~60% of the body's VPU work).
-    # ``make_collect`` instantiates the loop for a given buffer depth: the
-    # full-width round runs lean (C slots), the compacted straggler rounds
-    # deep (C_S slots; r5 — see C_S above).
+    # no (N, 3) arrays.  Occupied cells append only their (row_start,
+    # n_rows) RUN into K narrow buffers — the (n, C) window-row expansion
+    # happens ONCE per round after the loop, not as an (N, C) select in
+    # every step.  ``make_collect`` instantiates the loop for a given buffer
+    # depth: the full-width round runs lean (C slots), the compacted
+    # straggler rounds deep (C_S slots — see C_S above).
     def make_collect(C_, K_, soft_):
      lanes = jnp.arange(C_, dtype=jnp.int32)[None, :]  # (1, C_)
 
@@ -590,9 +586,8 @@ def shoot_grid(
 
         def p1_body(s):
             # UNROLL sub-steps per while iteration: the loop-exit check is a
-            # cross-lane reduction to a scalar (a pipeline sync) and each
-            # iteration pays XLA fusion-boundary staging — measured 13.2
-            # ns/ray-step at unroll 1 vs 6.8 at unroll 4 for the bare march.
+            # reduction to a scalar read by the loop, and each iteration is
+            # a fusion boundary, so both are paid once per UNROLL steps.
             # Every state update below is masked by ``collecting``/``move``,
             # so running the step body on a finished ray is the identity and
             # the overshoot (at most UNROLL-1 steps past the handoff/cap) is
@@ -615,9 +610,9 @@ def shoot_grid(
             # Append this occupied cell's window RUN to the per-ray list —
             # (start, width) packed into one i32 (ws < 2^23 checked at build
             # time).  ``runs`` is K separate (n,) arrays, NOT an (n, K)
-            # array: a minor dim of K << 128 pads to 128 lanes, so every
-            # (n, K) op wastes 128/K of the VPU (measured r4 — the same
-            # layout lesson as the r3 (N,3)->SoA conversion).
+            # array, so no op in the loop has a narrow minor dimension (the
+            # same layout choice as the SoA loop state; tuned on the earlier
+            # accelerator, not yet measured on the H100).
             need = w > 0
             fits = ((cnt_w + w <= soft_) | ((cnt_w == 0) & (w <= C_))) & (
                 cnt_c < K_
@@ -718,14 +713,14 @@ def shoot_grid(
         )
 
     # Always-tested low slots (TIER); higher slots are tested only for the
-    # rays that actually used them, at COMPACTED width (r5).  Measured at
-    # config-5 scale: with TIER = C//2 = 8 and a full-width cond arm, a
-    # 1M-ray round gathered 8-16M window rows against a mean of 4.6 useful
-    # rows/ray — a ~270 ms do-nothing floor (the "short-exit" probe,
-    # BASELINE.md r5).  Mean rows are ~1.9-4.6 across scenes; the default
-    # C//2 keeps shallow scenes on the single always-on gather (bench rows
-    # max 6 never wake the high arm), while ``tier=4`` + the compacted
-    # high arm wins on deep-tail scenes (config 5).
+    # rays that actually used them, at COMPACTED width.  At config-5 scale,
+    # TIER = C//2 = 8 with a full-width cond arm gathers 8-16M window rows
+    # per 1M-ray round against a mean of 4.6 useful rows/ray.  Mean rows
+    # are ~1.9-4.6 across scenes; the default C//2 keeps shallow scenes on
+    # the single always-on gather (bench rows max 6 never wake the high
+    # arm), while ``tier=4`` + the compacted high arm targets deep-tail
+    # scenes (config 5).  The default was tuned on the earlier accelerator,
+    # not yet measured on the H100.
     TIER_DEFAULT = C // 2 if soft is None else soft_eff
     if tier is not None:
         TIER_DEFAULT = int(tier)
@@ -747,12 +742,10 @@ def shoot_grid(
                 ctx, buf[:, :TIER_], active, best_t, best_tri
             )
             if C_ > TIER_ and not compact_high:
-                # r4 structure (default): one cond, full-width high arm —
-                # fires only when some ray used the high slots.  Measured
-                # r5: on shallow-tail scenes the nested compact machinery
-                # below costs ~10% even when never taken (the extra cond
-                # chain breaks fusion around best_t), so it is opt-in via
-                # ``tier=``.
+                # Default structure: one cond, full-width high arm — fires
+                # only when some ray used the high slots.  The nested compact
+                # machinery below adds a cond chain around best_t even when
+                # never taken, so it is opt-in via ``tier=``.
                 best_t, best_tri = jax.lax.cond(
                     jnp.any(buf[:, TIER_] != null_row),
                     lambda bt, btr: test(ctx, buf[:, TIER_:], active, bt, btr),
@@ -848,7 +841,7 @@ def shoot_grid(
     # ======== straggler rounds: COMPACTED width (shared machinery) =========
     # Lockstep traversal pays for the worst lane: unresolved rays are
     # compacted into chained narrower tiers and marched there — see
-    # accel/common.straggler_tiers (r4 design, extracted r5).  The deeper
+    # accel/common.straggler_tiers.  The deeper
     # C_S buffer rides only in these rounds.
     def round_s(ctx_s, st, msk, bt, btr):
         cell_s, tmax_s, te_s = st

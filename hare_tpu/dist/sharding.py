@@ -2,7 +2,7 @@
 
 The reference is a single-process C# library whose only parallelism is a
 thread-per-core voxel fill (SURVEY.md §2) — it has no distributed story at
-all.  The TPU-native design (BASELINE.json north star): a 1-D device mesh
+all.  The design here: a 1-D device mesh
 over a ``'rays'`` axis; ray batches shard ``P('rays')``, the Scene and
 material parameters replicate, per-bounce energies scatter into local
 histograms that ``psum`` over the mesh, and parameter gradients all-reduce
@@ -10,10 +10,11 @@ automatically through shard_map's AD transpose.  Ray-level data parallelism
 is the one strategy that applies to a ray tracer — there is no tensor/
 pipeline/expert analog to invent (SURVEY.md §2, parallelism table).
 
-On a multi-host pod slice the same code runs under
-``jax.distributed.initialize()`` with the global mesh spanning hosts;
-collectives ride ICI within a slice and DCN across slices — XLA inserts
-them from the same specs.
+Across processes or hosts the same code runs under
+``jax.distributed.initialize()`` with the global mesh spanning them; XLA
+inserts the collectives (NCCL between GPUs) from the same specs.  The cards
+of one host are joined all to all, so the mesh stays 1-D: its shape
+follows the algorithm, not a topology.
 """
 
 from __future__ import annotations
@@ -38,15 +39,13 @@ __all__ = [
 
 
 def init_distributed(**kwargs) -> None:
-    """Multi-host bring-up: ``jax.distributed.initialize`` passthrough.
+    """Multi-process bring-up: ``jax.distributed.initialize`` passthrough.
 
-    Call once per host process before building meshes on a pod slice.
-    No-op if already initialized.
+    Call once per process before building meshes that span processes.
+    No-op if already initialized; any other failure to initialize raises.
     """
-    try:
+    if not jax.distributed.is_initialized():
         jax.distributed.initialize(**kwargs)
-    except RuntimeError:
-        pass  # already initialized
 
 
 def make_ray_mesh(n_devices: Optional[int] = None, axis: str = "rays") -> Mesh:
@@ -128,6 +127,7 @@ def make_train_step(
     axis: str = "rays",
     use_scattering: bool = False,
     soft: Optional[bool] = None,
+    materials: Optional[jnp.ndarray] = None,
 ):
     """A full sharded training step for inverse acoustic design.
 
@@ -141,6 +141,12 @@ def make_train_step(
     params: dict with 'absorption' (P,); optionally 'scattering' (P,) (pass
     ``use_scattering=True``) and 'vertices' (V, 3).
 
+    ``materials``: optional ``(P,)`` int array mapping each polygon to a
+    material; 'absorption' and 'scattering' are then ``(M,)``, one value
+    per material.  One histogram has far fewer bins than a real scene has
+    polygons, so per-polygon coefficients are underdetermined; rooms are
+    built from a few materials, and fitting those is well posed.
+
     ``soft`` (histogram binning) defaults to ``fit_vertices``: vertex
     positions only reach the histogram through arrival TIMES, and the hard
     histogram is piecewise-constant in time — zero gradient almost
@@ -151,14 +157,17 @@ def make_train_step(
     """
     soft_hist = fit_vertices if soft is None else soft
 
+    def per_poly(x):
+        return x if materials is None else x[materials]
+
     def local_loss(params, scene, rays, target, aux, *rest):
-        a = jax.nn.sigmoid(params["absorption"])  # keep in (0, 1)
+        a = per_poly(jax.nn.sigmoid(params["absorption"]))  # keep in (0, 1)
         if fit_vertices:
             scene = scene.with_vertices(params["vertices"])
         kw = {}
         if use_scattering:
             kw = dict(
-                scattering=jax.nn.sigmoid(params["scattering"]),
+                scattering=per_poly(jax.nn.sigmoid(params["scattering"])),
                 key=jax.random.fold_in(rest[0], jax.lax.axis_index(axis)),
             )
         res = trace_rays(scene, rays, a, n_bounces, shoot_fn, aux=aux, **kw)

@@ -1,6 +1,6 @@
 """Closest-point and distance queries (branch-free, differentiable).
 
-TPU-native re-expression of the reference's proximity utilities:
+Batched re-expression of the reference's proximity utilities:
 
 - :func:`closest_point_triangle` <- ``Polygon.triclosestpoint``
   (``Hare_Geometry_Polygons.cs:62-114``): Voronoi-region closest point on a

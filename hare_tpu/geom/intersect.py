@@ -1,6 +1,6 @@
 """Branch-free intersection kernels: ray-triangle and ray-AABB.
 
-TPU-native re-expression of the reference's intersection core:
+Branch-free re-expression of the reference's intersection core:
 
 - ``ray_triangle_mt``: classic Möller–Trumbore with the reference's exact
   acceptance semantics (``Hare_Geometry_Polygons.cs:385-510``): determinant
@@ -10,8 +10,8 @@ TPU-native re-expression of the reference's intersection core:
   is exactly a two-sided test, which is what the branch-free form computes:
   both windings collapse to sign-aware bounds checks on one determinant.
 - ``ray_triangle_watertight``: Woop/Benthin/Wald 2013 watertight variant —
-  the default kernel of :class:`hare_tpu.accel.SpatialPartition` for f32 TPU
-  tracing (the reference is f64 everywhere; f32 needs the watertight edge
+  the default kernel of :class:`hare_tpu.accel.SpatialPartition` for f32
+  device tracing (the reference is f64 everywhere; f32 needs the watertight edge
   tests to avoid cracks along shared edges).  The same test in component-major
   form drives candidate acceptance inside every accel traversal
   (``accel/common.test_windows``).
@@ -50,11 +50,11 @@ def kernel_components(kernel, o_cmp, d_cmp, tri_cmp, det_eps=None,
                       unmasked=False):
     """THE ray/triangle test — the single source of truth for both kernels.
 
-    Operates on broadcastable scalar COMPONENT arrays (lane-friendly): never
-    ``(..., 3)`` vectors, whose minor-dim-3 layout wastes 125/128 VPU lanes
-    per op on TPU (measured: finalize_hits on (N,3) vectors cost 4.3 ms/call
-    at 32k rays, ~1/3 of a whole traversal).  Every consumer — the vector
-    wrappers below, ``accel/common.test_windows``'s window-row blocks,
+    Operates on broadcastable scalar COMPONENT arrays: never ``(..., 3)``
+    vectors, so no op works on a minor dimension of 3 (a layout tuned on
+    the earlier accelerator, not yet measured on the H100).  Every consumer
+    — the vector wrappers below, ``accel/common.test_windows``'s window-row
+    blocks,
     ``accel/common.finalize_hits``'s differentiable recompute — calls this
     one implementation, so an epsilon-policy change cannot silently diverge.
 

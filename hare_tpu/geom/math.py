@@ -1,6 +1,6 @@
 """Vector math over SoA ``(..., 3)`` arrays.
 
-TPU-native re-expression of the reference's scalar math layer
+Batched re-expression of the reference's scalar math layer
 (``Hare_Geometry_Math.cs:27-103``: Dot/Cross/ScalarTriple/Normalize and the
 coplanarity check at ``:113-135``).  Everything here is pure ``jnp``, shape-
 polymorphic over leading batch dimensions, and differentiable.
@@ -30,7 +30,7 @@ def cross(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Batched 3-vector cross product (``Hare_math.Cross``).
 
     Written out by component instead of ``jnp.cross`` so XLA fuses it freely
-    with surrounding elementwise work on the VPU.
+    with surrounding elementwise work.
     """
     ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
     bx, by, bz = b[..., 0], b[..., 1], b[..., 2]

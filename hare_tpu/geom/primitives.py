@@ -1,6 +1,6 @@
 """Core geometric record types as JAX pytrees (SoA, batch-first).
 
-TPU-native equivalents of the reference's mutable scalar structs:
+Batched, immutable equivalents of the reference's mutable scalar structs:
 
 - ``Ray``       <- ``Hare_Geometry_Primitives.cs:393-429`` (origin, direction,
   ``poly_origin1/2`` self-intersection exclusion).  ``ThreadID``/``Ray_ID``

@@ -1,6 +1,6 @@
 """Device-side scene representation: padded SoA arrays (a frozen pytree).
 
-This is the TPU-native analog of the reference's pointer-rich ``Topology``
+This is the array-program analog of the reference's pointer-rich ``Topology``
 object graph (``Hare_Geometry_Topology.cs:27-698``): instead of ``Vertex``/
 ``Edge``/``Polygon`` objects with back-references, the scene is a handful of
 flat index arrays.  Vertices stay a live, differentiable input — the
@@ -36,7 +36,7 @@ class Scene(NamedTuple):
     keep the reference's polygon granularity.
 
     Triangle arrays are padded (degenerate all-zero triangles, poly id
-    ``PAD_POLY``) so counts hit TPU-friendly multiples; padding never
+    ``PAD_POLY``) so counts hit aligned multiples; padding never
     produces hits because degenerate triangles have ``det == 0``.
     """
 
@@ -52,8 +52,7 @@ class Scene(NamedTuple):
     # by two coplanar polygons must exclude both.
     tri_edge_poly: jnp.ndarray  # (T, 3) i32
     # Packed per-triangle static metadata — ONE gather row serves the whole
-    # bounce step (profiled: the 5-6 separate narrow per-ray gathers this
-    # replaces cost ~1 ms/bounce at 32k rays):
+    # bounce step (instead of 5-6 separate narrow per-ray gathers):
     #   lane 0    tri_poly
     #   lanes 1-3 tri_edge_poly pre-filtered to COPLANAR neighbors only
     #             (poly_plane equality folded in at build time)
@@ -61,8 +60,8 @@ class Scene(NamedTuple):
     #   lane 7    tri_top
     tri_meta: jnp.ndarray  # (T, 8) i32
     # Packed per-triangle GEOMETRY row — ONE 16-lane f32 gather serves the
-    # whole hit-finalize + bounce step (r4; replaces a tri_meta gather plus
-    # THREE narrow per-vertex gathers, measured 2.5 ms/shoot at 32k rays):
+    # whole hit-finalize + bounce step (instead of a tri_meta gather plus
+    # THREE narrow per-vertex gathers):
     #   lanes 0-8   v0 | e1 | e2 (vertex positions, f32)
     #   lane  9     tri_poly              (i32 bitcast)
     #   lanes 10-12 coplanar edge nbrs    (i32 bitcast, = tri_meta lanes 1-3)
@@ -116,8 +115,8 @@ class Scene(NamedTuple):
         Also refreshes ``tri_geom``'s geometry lanes from the new vertices
         (in-jit, differentiable), so the FORWARD pass of every accel
         backend sees the live coordinates — without this, grid/octree/
-        kdtree losses were bit-identical under any vertex change (r4
-        verdict headline) and ``fit_vertices`` could not descend.  Traversal
+        kdtree losses would be bit-identical under any vertex change and
+        ``fit_vertices`` could not descend.  Traversal
         tables still hold build-time geometry; rebuild the accel structure
         after large moves (see ``tri_geom``'s field comment).
         """
@@ -130,10 +129,11 @@ class Scene(NamedTuple):
         v2 = v[self.tri_v[:, 2]]
         geom = jnp.concatenate([v0, v1 - v0, v2 - v0], axis=1)
         # Splice the refreshed geometry lanes with the (unchanged) id lanes
-        # in the INT domain: the id lanes are int32 bitcast to f32, and f32
-        # data movement on TPU canonicalizes NaN payloads — an f32
-        # concatenate rewrote every -1 sentinel (0xFFFFFFFF) to the default
-        # NaN (0x7FC00000), silently corrupting poly/neighbor/vertex ids.
+        # in the INT domain: the id lanes are int32 bitcast to f32, and a
+        # backend may canonicalize NaN payloads in f32 data movement — an
+        # f32 concatenate can rewrite every -1 sentinel (0xFFFFFFFF) to the
+        # default NaN (0x7FC00000), silently corrupting poly/neighbor/vertex
+        # ids.
         # stop_gradient: bitcast has no transpose rule, and gradients never
         # flow through the rows anyway — accel/common._hit_vals zeroes the
         # row cotangent and supplies d/d(vertices) from its live-vertex

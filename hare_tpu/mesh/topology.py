@@ -1,6 +1,6 @@
 """Host-side mesh compiler: welding, adjacency, planes — emits a `Scene`.
 
-TPU-native restructuring of ``Hare_Geometry_Topology.cs``: the reference
+A vectorized restructuring of ``Hare_Geometry_Topology.cs``: the reference
 builds a pointer graph (``Vertex``/``Edge``/``Polygon`` objects with
 back-references, guarded by ``Top_Lock`` for multithreaded ``Add_Polygon``);
 here mesh compilation is vectorized NumPy with no locks — welding is an

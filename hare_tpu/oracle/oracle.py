@@ -3,7 +3,7 @@
 Implements the reference's *exact* branching logic (winding flip by
 ``Ray_Side`` + one-sided Möller–Trumbore per determinant sign, scalar slab
 test, sequential nearest-hit scan with ``t > 1e-10`` acceptance and
-origin-polygon exclusion) so the TPU kernels can be validated against it —
+origin-polygon exclusion) so the device kernels can be validated against it —
 the test strategy of SURVEY.md §4, replacing the test suite the reference
 never had.
 

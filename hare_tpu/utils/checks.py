@@ -10,7 +10,8 @@ sanitizer surface here is:
   ``jax_debug_infs`` so any non-finite intermediate raises at the op.
 - :func:`determinism_check`: run a function twice and demand bitwise-equal
   results (same seed => same histogram) — the replacement for a race
-  detector on an architecture with no shared mutable state.
+  detector on an architecture with no shared mutable state.  Bitwise
+  equality holds on the CPU backend only; see its docstring.
 """
 
 from __future__ import annotations
@@ -33,6 +34,11 @@ def determinism_check(fn: Callable, *args, runs: int = 2) -> bool:
     """True iff ``fn(*args)`` is bitwise identical across ``runs`` calls.
 
     Raises AssertionError naming the first differing leaf otherwise.
+
+    Holds on the CPU backend only.  On a GPU, scatter-adds (the
+    ``segment_sum`` histogram, the gather transposes in the backward pass)
+    accumulate with atomics in an order that varies from run to run, so
+    float results agree only to rounding; compare those with a tolerance.
     """
     ref = jax.tree.map(np.asarray, fn(*args))
     ref_leaves, treedef = jax.tree_util.tree_flatten(ref)

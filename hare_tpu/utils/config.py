@@ -38,12 +38,12 @@ class HareConfig:
     kernel: str = "watertight"  # watertight (default everywhere) | mt
     cap: int = 16  # grid candidate-buffer slots per round (shoot_grid cap)
     march: int = 32  # tree traversal steps per round (shoot_tree march)
-    # Grid window-row width (triangles per packed row; r4: 16 is the
-    # trace-optimal default, 32 wins ~7% on coherent primary-ray batches
-    # at the cost of ~30% inside the bounce loop — see BASELINE.md).
+    # Grid window-row width (triangles per packed row; None = 16, tuned on
+    # the earlier accelerator, not yet measured on the H100).
     win: Optional[int] = None
-    # Early-test threshold (shoot_grid soft); None = off (measured r4:
-    # counterproductive on incoherent batches, kept for primary-ray use).
+    # Early-test threshold (shoot_grid soft); None = off (no help on
+    # incoherent batches on the earlier accelerator; kept for primary-ray
+    # use).
     soft: Optional[int] = None
     # Deep-tail knobs (r5, shoot_grid): ``tier`` = always-tested buffer
     # slots with a compacted high-slot arm; ``cap_s`` = deeper straggler

@@ -85,9 +85,9 @@ def test_octree_build():
 
 def test_kdtree_build():
     top = Topology.build(shapes.concert_hall())
-    # default: the reference's binary shape (level collapse measured slower
-    # on TPU for KD — BSP supernode children break the <=4-crossed-cells
-    # push bound; see build_kdtree docstring)
+    # default: the reference's binary shape (level collapse loses for KD —
+    # BSP supernode children break the <=4-crossed-cells push bound; see
+    # build_kdtree docstring)
     tr = build_kdtree(top, max_depth=14, max_tris_per_node=12)
     assert tr.branch == 2
     assert set(_reachable_tris(tr)) == set(range(top.n_tris))
@@ -141,8 +141,8 @@ def test_tree_agreement_room(rng, which):
 @pytest.mark.parametrize("which", ["octree", "kdtree"])
 def test_tree_agreement_soup(rng, which, ordered):
     # ordered=True exercises the front-to-back argsort push path
-    # (ComputeTraversalOrder analog, tree.py) — measured slower on TPU but
-    # shipped as a knob, so it must stay correct (VERDICT r4 weak item 6).
+    # (ComputeTraversalOrder analog, tree.py) — off by default but shipped
+    # as a knob, so it must stay correct.
     top = Topology.build(shapes.random_soup(300, seed=17))
     sc = top.scene()
     if which == "octree":

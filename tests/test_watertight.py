@@ -1,7 +1,7 @@
 """Watertightness: rays through shared edges must never fall into cracks.
 
 The reference gets away with classic Möller–Trumbore because it computes in
-f64 (``Hare_Geometry_Polygons.cs:385-510``); the f32 TPU kernels use the
+f64 (``Hare_Geometry_Polygons.cs:385-510``); the f32 device kernels use the
 Woop/Benthin/Wald 2013 watertight test as the default — its 2-D edge
 functions have consistent signs across a shared edge, so exactly one (or
 both, tie at the same t) of two adjacent triangles accepts any edge ray.
